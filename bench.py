@@ -1,10 +1,10 @@
-"""Benchmark: per-chip tracking throughput on real hardware.
+"""Benchmark: per-device tracking throughput on the default device.
 
 Prints ONE JSON line: the raw tracking headline
 {"metric", "value", "unit", "vs_baseline"} plus stall annotation and —
 unless --no-engine — the engine-level numbers (SLAMEngine with mapping
-active, via bench_engine.run_engine_bench) under "engine", so the
-driver's BENCH_rNN.json captures both (VERDICT r3 #4).
+active, via bench_engine.run_engine_bench) under "engine". A failing
+engine bench fails the run.
 
 Scenario (the reference's operating point): 640x480 frames, a ~2000-point
 map, full per-frame pipeline = frame build (pyramid + FAST + SBI) +
@@ -16,98 +16,40 @@ doc/PTAM.txt:33-53; BASELINE target >= 5x per chip).
 import json
 import sys
 import time
-import traceback
 
 import numpy as np
 
-from bench_common import STALL_THRESHOLD_S, read_rtt_s, sync_read
+from bench_common import (REF_PARAMS, STALL_THRESHOLD_S, make_tracking_scene,
+                          read_rtt_s, sync_read)
 
 
 def main():
     import jax
     import jax.numpy as jnp
 
-    from ptam_cg_tpu.camera import atan
     from ptam_cg_tpu.config import EngineConfig, FrontendConfig
-    from ptam_cg_tpu.io import synth
-    from ptam_cg_tpu.models import keyframe, map_state, tracker
-    from ptam_cg_tpu.ops import levels as levelops
-    from ptam_cg_tpu.utils import se3 as se3lib
+    from ptam_cg_tpu.models import keyframe, tracker
+    from ptam_cg_tpu.utils.compile_cache import enable_compile_cache
 
     bf16 = "--bf16" in sys.argv
     bf16_cross = "--bf16-cross" in sys.argv
-    # The FUSED build+track program is the engine's actual TRACKING-stage
-    # dispatch since round 3 (and measures faster: 280.0 vs 274.5 FPS);
-    # fused is the DEFAULT — "--fused" is accepted as an explicit no-op
-    # alias (ADVICE r3), "--split" measures the round-1/2 two-program
-    # pipeline instead.
+    # The FUSED build+track program is the engine's TRACKING-stage
+    # dispatch and the default here; "--fused" is accepted as an
+    # explicit no-op alias, "--split" measures the two-program pipeline
+    # (build, then track) instead.
     fused = "--split" not in sys.argv
     if "--fused" in sys.argv and "--split" in sys.argv:
         raise SystemExit("pass at most one of --fused / --split")
-    # Round 5: the engine passes a slim 14-leaf TrackView instead of the
-    # ~36-leaf MapState (host dispatch cost scales with pytree leaf
-    # count on the networked backend — VERDICT r4 #5). The bench
-    # measures the same program; --fullmap keeps the old full-MapState
-    # argument for A/B.
+    # The engine passes a slim 14-leaf TrackView instead of the ~36-leaf
+    # MapState; the bench measures the same program. --fullmap keeps the
+    # full-MapState argument for A/B.
     fullmap = "--fullmap" in sys.argv
-    size = (640, 480)
-    params = (1.0803, 1.43987, 0.519983, 0.548655, 0.244943)
-    seq = synth.SyntheticSequence(params, image_size=size, n_frames=8,
-                                  seed=7, height=1.5, radius=0.2,
-                                  sweep=0.6)
-    cam = seq.cam
-
-    # Ground-truth map from frame-0 candidates on the plane (~2000 pts).
-    f0 = seq.frame(0)
+    enable_compile_cache()
+    scene = make_tracking_scene(atlas_bf16=bf16)
+    size, m, n = scene.size, scene.map, scene.n_points
+    cam, ff0, pose0 = scene.seq.cam, scene.frame0, scene.pose0
+    params = REF_PARAMS
     fe_cfg = FrontendConfig(atlas_bf16=bf16)
-    ff0 = jax.jit(lambda x: keyframe.build_frame(
-        x, fe_cfg, candidate_min_score=50.0))(f0)
-    pose0 = seq.pose(0)
-    T_wc = se3lib.inv(pose0)
-
-    P = 2048
-    m = map_state.empty_map(size, max_points=P, max_kfs=4,
-                            atlas_dtype=jnp.bfloat16 if bf16
-                            else jnp.float32)
-    m = map_state.insert_keyframe(m, 0, ff0, pose0, 1.5, 0.1)
-
-    cand_xy = np.asarray(ff0.cand_xy)
-    cand_valid = np.asarray(ff0.cand_valid)
-    pts, centers, lvls = [], [], []
-    for lev in range(4):
-        xy = cand_xy[lev][cand_valid[lev]]
-        for (x, y) in xy:
-            p0 = (np.array([x, y], np.float64) + 0.5) * (1 << lev) - 0.5
-            z1 = np.asarray(atan.unproject(
-                jnp.asarray(p0, jnp.float32), cam))
-            ray = np.asarray(T_wc.R) @ np.array([z1[0], z1[1], 1.0])
-            origin = np.asarray(T_wc.t)
-            s = -origin[2] / ray[2]
-            if s <= 0:
-                continue
-            pts.append(origin + s * ray)
-            centers.append([x, y])
-            lvls.append(lev)
-            if len(pts) >= P:
-                break
-        if len(pts) >= P:
-            break
-    n = len(pts)
-    pos = np.zeros((P, 3), np.float32)
-    pos[:n] = np.stack(pts)
-    ctr = np.zeros((P, 2), np.float32)
-    ctr[:n] = np.stack(centers)
-    lv = np.zeros(P, np.int32)
-    lv[:n] = np.array(lvls)
-    c_nc, r_nc, d_nc, nrm = map_state.make_point_rays(
-        jnp.asarray(ctr), jnp.asarray(lv), pose0, cam, size)
-    m = m._replace(
-        point_pos=jnp.asarray(pos),
-        point_valid=jnp.asarray(np.arange(P) < n),
-        point_src_level=jnp.asarray(lv), point_center=jnp.asarray(ctr),
-        point_center_nc=c_nc, point_right_nc=r_nc, point_down_nc=d_nc,
-        point_normal_nc=nrm, good=jnp.asarray(True))
-    m = map_state.refresh_pixel_vectors(m)
 
     cfg = EngineConfig(frontend=fe_cfg)
     if bf16_cross:
@@ -115,26 +57,24 @@ def main():
         cfg = cfg.replace(tracker=TrackerConfig(zmssd_bf16_cross=True))
     cam_params = jnp.asarray(params, jnp.float32)
 
-    # The map rides as a device-resident ARGUMENT in both variants
-    # (captured multi-MB closure constants slow calls ~3x on this
-    # backend). Tracking frames use the lite build (keyframe-only stages
-    # skipped, matching the reference's per-frame MakeKeyFrame_Lite).
+    # The map rides as a device-resident ARGUMENT in both variants, not
+    # as a captured closure constant. Tracking frames use the lite build
+    # (keyframe-only stages skipped, matching the reference's per-frame
+    # MakeKeyFrame_Lite).
     build_step = jax.jit(
         lambda im: keyframe.build_frame_tracking(im, cfg.frontend))
     track_step = jax.jit(
         lambda s, m_, ff, ps: tracker.track_frame(
             s, m_, ff, ps, cam, size, cam_params, None, cfg.tracker))
     # ONE dispatch per frame (build + track in one program) — the
-    # engine's production TRACKING-stage program. Round-1 measured the
-    # fused program slower; the gather rewrites + smaller fine window
-    # inverted that (round 3).
+    # engine's production TRACKING-stage program.
     fused_step = jax.jit(
         lambda s, m_, im, ps: tracker.track_frame_from_image(
             s, m_, im, ps, cam, size, cam_params, cfg.tracker,
             cfg.frontend))
 
     state = tracker.init_tracker_state(pose0)
-    frames = [seq.frame(i) for i in range(1, 8)]
+    frames = [scene.seq.frame(i) for i in range(1, 8)]
     prev_sbi = ff0.sbi_track
     if not fullmap:
         m = tracker.make_track_view(m)
@@ -181,9 +121,8 @@ def main():
             st = out.state
             sbi = ff.sbi_track
             iter_t.append(time.perf_counter() - t1)
-    # End the window with a real HOST READ: block_until_ready can return
-    # before execution completes on this backend (bench_common.sync_read
-    # — round-5 finding); the known read RTT is subtracted.
+    # End the window with a host read of the last chained output
+    # (bench_common.sync_read); the known read RTT is subtracted.
     sync_read(st.pose.t)
     total = time.perf_counter() - t0 - rtt
     iter_t = np.asarray(iter_t)
@@ -214,15 +153,10 @@ def main():
           f"frame_time={dt*1000:.1f}ms stalls={stalls}", file=sys.stderr)
 
     # Engine-level metric (the product path, mapping active) in the same
-    # artifact. Guarded: an engine-bench failure must not lose the
-    # tracking headline.
+    # artifact. A failing engine bench fails the run.
     if "--no-engine" not in sys.argv and not (bf16 or bf16_cross):
-        try:
-            from bench_engine import run_engine_bench
-            result["engine"] = run_engine_bench()
-        except Exception:
-            traceback.print_exc()
-            result["engine"] = {"error": "engine bench failed, see stderr"}
+        from bench_engine import run_engine_bench
+        result["engine"] = run_engine_bench()
 
     print(json.dumps(result))
 

@@ -1,15 +1,17 @@
 """Secondary benchmark: bundle-adjustment LM-step throughput.
 
 Prints one JSON line per problem size. The reference runs global BA on
-one CPU core (ref: src/Bundle.cc); this measures the MXU Schur-complement
-step at local-BA and global-BA scales on the current backend.
+one CPU core (ref: src/Bundle.cc); this measures the dense
+Schur-complement step at local-BA and global-BA scales on the default
+device.
 
 ``--northstar`` (VERDICT r3 #2) runs the BASELINE.json scale target —
 C=500 keyframes / P=50k points / M=500k measurements:
   (a) the point-sharded LM chunk on an 8-virtual-device CPU mesh
       (correctness: finite + error decreases; per-host memory), plus an
       equal-results check vs the single-device step at C=500/P=5k/M=50k;
-  (b) the single-device LM step on the real TPU (step latency, peak HBM)
+  (b) the single-device LM step on the default device, a GPU (step
+      latency, peak device memory; ``--device-only`` runs just this)
       — the analytic accounting in BASELINE.md says W blocks are 1.8 GB
       dense (225 MB/device sharded over 8) and the per-inner-iteration
       collective is 36C^2 floats = 36 MB.
@@ -21,7 +23,7 @@ import sys
 import time
 
 # Must be set before jax initializes: gives the in-process CPU backend 8
-# virtual devices for the north-star mesh run alongside the TPU.
+# virtual devices for the north-star mesh run alongside the GPU.
 if "--northstar" in sys.argv:
     os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
                                + " --xla_force_host_platform_device_count=8")
@@ -73,7 +75,7 @@ def make_problem(n_cams, n_pts, n_meas, seed=0,
 
 def northstar():
     """The 500-KF scale target: sharded chunk on the 8-device CPU mesh +
-    single-device step on the real TPU. See module docstring."""
+    single-device step on the default device. See module docstring."""
     import jax
     import jax.numpy as jnp
     from jax.sharding import Mesh
@@ -88,8 +90,8 @@ def northstar():
     kind = mest.estimator_id(cfg.mestimator)
     motion = (0.002, 0.0005)   # keep a 500-camera trajectory sane
 
-    if "--tpu-only" in sys.argv:
-        _northstar_tpu(C, P, M, cfg, motion)
+    if "--device-only" in sys.argv:
+        _northstar_device(C, P, M, cfg, motion)
         return
 
     # ---- (a0) equal-results: sharded vs single-device at C=500, 10x
@@ -149,13 +151,13 @@ def northstar():
             "host_rss_gb": round(rss_gb, 2),
         }))
 
-    # ---- (b) single-device on the real TPU ----------------------------
+    # ---- (b) single-device on the default device ---------------------
     if "--cpu-only" in sys.argv:
         return
-    _northstar_tpu(C, P, M, cfg, motion)
+    _northstar_device(C, P, M, cfg, motion)
 
 
-def _northstar_tpu(C, P, M, cfg, motion):
+def _northstar_device(C, P, M, cfg, motion):
     import jax
     import jax.numpy as jnp
 
@@ -165,20 +167,14 @@ def _northstar_tpu(C, P, M, cfg, motion):
     dev = jax.devices()[0]
     prob, cam = make_problem(C, P, M, seed=4, motion=motion)
     prob = jax.device_put(prob, dev)
-    # Time PER INNER LM ITERATION with standalone jitted steps. Two
-    # measurement hazards found round 4: (a) one lm_step CALL runs a
-    # variable number of inner lambda retries, so per-call numbers can
-    # overstate arbitrarily; (b) the while_loop-of-steps CHUNK program
-    # is ~10x slower per iteration at THIS scale (4.3 s vs 0.43 s —
-    # double-buffered ~1.7 GB loop-carried state appears to force
-    # spills), while at product scales (64 KF) the chunk costs only
-    # ~25%. Round 5: MapMaker._ba_dispatch_chunk therefore switches to
-    # single-step dispatches above BA_CHUNK_W_BYTES_LIMIT — the PRODUCT
-    # program at this scale is bundle._cached_lm_step_flags, measured
-    # below alongside the standalone step (VERDICT r4 #1).
-    # Timed windows end with a real HOST READ (int(state.iters)):
-    # block_until_ready can return before execution completes on this
-    # backend (round-5 finding, bench_common.sync_read).
+    # Time PER INNER LM ITERATION with standalone jitted steps: one
+    # lm_step CALL runs a variable number of inner lambda retries, so
+    # per-call numbers can overstate arbitrarily. Above
+    # BA_CHUNK_W_BYTES_LIMIT MapMaker._ba_dispatch_chunk dispatches
+    # single steps — the PRODUCT program at this scale is
+    # bundle._cached_lm_step_flags, measured below alongside the
+    # standalone step. Timed windows end with a host read
+    # (int(state.iters); bench_common.sync_read).
     step = jax.jit(lambda s: bundle.lm_step(s, cam, cfg))
     state = bundle.init_lm(prob, cfg)
     t0 = time.perf_counter()
@@ -201,9 +197,7 @@ def _northstar_tpu(C, P, M, cfg, motion):
     # --- PRODUCT dispatch path at this scale: the per-step+flags
     # program MapMaker._ba_dispatch_chunk selects (the caps here are
     # C->512 / P->65536, far past BA_CHUNK_W_BYTES_LIMIT), in the
-    # MEMORY-LEAN configuration the MapMaker applies at this tier
-    # (round 5: the dense step's ~5 GB peak working set costs seconds
-    # of shared-service overhead per call; device compute is ~0.4 s).
+    # MEMORY-LEAN configuration the MapMaker applies at this tier.
     import dataclasses
     assert mapmaker.ba_use_single_step(512, 65536)
     kind = mest.estimator_id(cfg.mestimator)
@@ -222,13 +216,14 @@ def _northstar_tpu(C, P, M, cfg, motion):
     standalone_ms = dt / n_inner * 1000
 
     print(json.dumps({
-        "metric": "northstar_ba_tpu1_step_ms",
+        "metric": "northstar_ba_1dev_step_ms",
         "value": round(standalone_ms, 1),
-        "unit": "ms/inner-LM-iteration (1 TPU, C=500 P=50k M=500k)",
+        "unit": "ms/inner-LM-iteration (1 device, C=500 P=50k M=500k)",
+        "device": {"platform": dev.platform, "kind": dev.device_kind},
         "vs_baseline": None,
         "inner_iters_timed": n_inner,
         "compile_plus_first_s": round(compile_s, 1),
-        "peak_hbm_gb": round(peak_gb, 2),
+        "peak_device_mem_gb": round(peak_gb, 2),
         "rms_after": round(rms4, 3),
         "converged": bool(state.converged),
         "failed": bool(state.failed),
@@ -244,7 +239,9 @@ def main():
     import jax
 
     from ptam_cg_tpu.models import bundle
+    from ptam_cg_tpu.utils.compile_cache import enable_compile_cache
 
+    enable_compile_cache()
     if "--northstar" in sys.argv:
         northstar()
         return

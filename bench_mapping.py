@@ -14,7 +14,7 @@ Prints ONE JSON line with the KF-integration latency, plus a duty-cycle
 estimate: fraction of a 20-frame @30FPS keyframe period spent on these
 mapping jobs (BA step cost is benchmarked separately in bench_ba.py).
 
-Run on CPU for logic (fast), real TPU for the recorded numbers.
+Run on the CPU for logic (fast), on the GPU for the recorded numbers.
 """
 
 import json
@@ -25,66 +25,21 @@ import numpy as np
 
 
 def build_scene(size=(640, 480), P=2048, K=8):
-    """bench.py's synthetic planar scene: KF0 + ~2000 ground-truth map
-    points + dense measurements for KF0."""
+    """bench.py's synthetic planar scene (bench_common.make_tracking_scene)
+    with ``K`` keyframe slots + dense measurements for KF0."""
     import jax
     import jax.numpy as jnp
 
-    from ptam_cg_tpu.camera import atan
-    from ptam_cg_tpu.io import synth
+    from bench_common import make_tracking_scene
     from ptam_cg_tpu.models import keyframe, map_state
-    from ptam_cg_tpu.utils import se3 as se3lib
 
-    params = (1.0803, 1.43987, 0.519983, 0.548655, 0.244943)
-    seq = synth.SyntheticSequence(params, image_size=size, n_frames=4,
-                                  seed=7, height=1.5, radius=0.2,
-                                  sweep=0.6)
+    scene = make_tracking_scene(P, size, n_frames=4, max_kfs=K)
+    seq, m = scene.seq, scene.map
     cam = seq.cam
     build_full = jax.jit(lambda x: keyframe.build_frame(
         x, candidate_min_score=50.0))
-    ff0 = build_full(seq.frame(0))
-    pose0 = seq.pose(0)
-    T_wc = se3lib.inv(pose0)
-
-    m = map_state.empty_map(size, max_points=P, max_kfs=K)
-    m = map_state.insert_keyframe(m, 0, ff0, pose0, 1.5, 0.1)
-
-    cand_xy = np.asarray(ff0.cand_xy)
-    cand_valid = np.asarray(ff0.cand_valid)
-    pts, centers, lvls = [], [], []
-    for lev in range(4):
-        for (x, y) in cand_xy[lev][cand_valid[lev]]:
-            p0 = (np.array([x, y], np.float64) + 0.5) * (1 << lev) - 0.5
-            z1 = np.asarray(atan.unproject(jnp.asarray(p0, jnp.float32),
-                                           cam))
-            ray = np.asarray(T_wc.R) @ np.array([z1[0], z1[1], 1.0])
-            origin = np.asarray(T_wc.t)
-            s = -origin[2] / ray[2]
-            if s <= 0:
-                continue
-            pts.append(origin + s * ray)
-            centers.append([x, y])
-            lvls.append(lev)
-            if len(pts) >= P:
-                break
-        if len(pts) >= P:
-            break
-    n = len(pts)
-    pos = np.zeros((P, 3), np.float32)
-    pos[:n] = np.stack(pts)
-    ctr = np.zeros((P, 2), np.float32)
-    ctr[:n] = np.stack(centers)
-    lv = np.zeros(P, np.int32)
-    lv[:n] = np.array(lvls)
-    c_nc, r_nc, d_nc, nrm = map_state.make_point_rays(
-        jnp.asarray(ctr), jnp.asarray(lv), pose0, cam, size)
-    m = m._replace(
-        point_pos=jnp.asarray(pos),
-        point_valid=jnp.asarray(np.arange(P) < n),
-        point_src_level=jnp.asarray(lv), point_center=jnp.asarray(ctr),
-        point_center_nc=c_nc, point_right_nc=r_nc, point_down_nc=d_nc,
-        point_normal_nc=nrm, good=jnp.asarray(True))
-    m = map_state.refresh_pixel_vectors(m)
+    ctr = np.asarray(m.point_center)
+    lv = np.asarray(m.point_src_level)
 
     # Dense KF0 measurements at the points' root positions.
     lvl0 = (ctr + 0.5) * (1 << lv)[:, None].astype(np.float32) - 0.5
@@ -101,7 +56,9 @@ def main():
 
     from ptam_cg_tpu.models import mapmaker as mmlib
     from ptam_cg_tpu.models import map_state
+    from ptam_cg_tpu.utils.compile_cache import enable_compile_cache
 
+    enable_compile_cache()
     size = (640, 480)
     seq, cam, m, build_full = build_scene(size)
     P = m.point_pos.shape[0]
@@ -130,11 +87,9 @@ def main():
                                     meas_level, meas_valid, meas_valid,
                                     dm, ds, npm)
 
-    # Warmup / compile. Timed windows end with a real HOST READ,
-    # subtract the read RTT, and CHAIN each call on the previous output
-    # (round-5 backend hazards: block_until_ready doesn't fence;
-    # identical-args calls can be served without re-execution — see
-    # bench_common.sync_read and CLAUDE.md).
+    # Warmup / compile. Timed windows end with a host read, subtract
+    # the read RTT, and CHAIN each call on the previous output (see
+    # bench_common.sync_read).
     from bench_common import read_rtt_s, sync_read
 
     # Chain by feeding the integrated map's state back in via a tiny

@@ -67,16 +67,18 @@ def main():
                     help="joint GN iterations (0.1-damped steps)")
     ap.add_argument("--out", default=None, metavar="CFG",
                     help="write Camera.Parameters in settings.cfg format")
-    ap.add_argument("--tpu", action="store_true",
-                    help="run on the TPU backend (default: CPU — this "
-                         "is an offline host-loop tool)")
+    ap.add_argument("--cpu", action="store_true",
+                    help="run on the CPU (default: JAX's default "
+                         "backend, the GPU when there is one)")
     args = ap.parse_args()
     if not args.synthetic and args.images is None:
         ap.error("give IMAGE_DIR or --synthetic N")
 
     import jax
-    if not args.tpu:
+    if args.cpu:
         jax.config.update("jax_platforms", "cpu")
+    from ptam_cg_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     import jax.numpy as jnp
     import numpy as np
 

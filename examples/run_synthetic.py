@@ -1,7 +1,7 @@
 """End-to-end demo: run the full SLAM engine on a synthetic ground-truth
 sequence and report ATE (the BASELINE config 1-4 harness in miniature).
 
-Usage: python examples/run_synthetic.py [--frames N] [--size WxH] [--tpu]
+Usage: python examples/run_synthetic.py [--frames N] [--size WxH] [--cpu]
 """
 
 import argparse
@@ -16,8 +16,9 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=40)
     ap.add_argument("--size", default="320x240")
-    ap.add_argument("--tpu", action="store_true",
-                    help="run on the TPU backend (default: CPU)")
+    ap.add_argument("--cpu", action="store_true",
+                    help="run on the CPU (default: JAX's default "
+                         "backend, the GPU when there is one)")
     ap.add_argument("--seed", type=int, default=5)
     ap.add_argument("--profile", default=None, metavar="DIR",
                     help="write a JAX profiler trace (XPlane) to DIR")
@@ -29,8 +30,10 @@ def main():
     args = ap.parse_args()
 
     import jax
-    if not args.tpu:
+    if args.cpu:
         jax.config.update("jax_platforms", "cpu")
+    from ptam_cg_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     import jax.numpy as jnp
     import numpy as np
 

@@ -6,7 +6,7 @@ groundtruth.txt when present.
 
 Usage:
   python examples/run_tum.py DATASET_DIR [--settings settings.cfg]
-      [--frames N] [--native] [--tpu] [--ar out_dir] [--map out.ppm]
+      [--frames N] [--native] [--cpu] [--ar out_dir] [--map out.ppm]
 """
 
 import argparse
@@ -26,7 +26,9 @@ def main():
                     help="frame cap (0 = whole dataset)")
     ap.add_argument("--native", action="store_true",
                     help="use the C++ prefetching frame pump")
-    ap.add_argument("--tpu", action="store_true")
+    ap.add_argument("--cpu", action="store_true",
+                    help="run on the CPU (default: JAX's default "
+                         "backend, the GPU when there is one)")
     ap.add_argument("--ar", default=None, metavar="OUT_DIR",
                     help="write AR-composited frames (EyeGame-parity "
                          "eyeballs on the dominant plane) as PPMs")
@@ -44,14 +46,14 @@ def main():
                     help="pace replay at HZ frames/s like the "
                          "reference's 25 FPS dataset sleep "
                          "(ref: src/VideoSource.cc:102-103); 0 = "
-                         "unthrottled. On a shared TPU service a tiny "
-                         "keep-warm dispatch fills each idle gap so the "
-                         "reservation is not parked (see README)")
+                         "unthrottled")
     args = ap.parse_args()
 
     import jax
-    if not args.tpu:
+    if args.cpu:
         jax.config.update("jax_platforms", "cpu")
+    from ptam_cg_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     import numpy as np
 
     from ptam_cg_tpu.config import EngineConfig
@@ -123,17 +125,8 @@ def main():
     frame = f0
     ts = ts0
     # Paced replay (--rate): sleep to the tick like the reference's
-    # dataset sleep; keep the device reservation warm through the idle
-    # gap with a tiny dispatch (round-5 finding: a parked idle
-    # reservation costs multi-second reclaim hangs on the shared
-    # service).
+    # dataset sleep.
     period = 1.0 / args.rate if args.rate > 0 else 0.0
-    warm_f = warm_x = None
-    if period and args.tpu:
-        import jax.numpy as _jnp
-        warm_f = jax.jit(lambda a: a + 1.0)
-        warm_x = _jnp.float32(0.0)
-        warm_f(warm_x).block_until_ready()
     next_tick = time.perf_counter()
     for i in range(n_frames):
         if console is not None:
@@ -141,10 +134,6 @@ def main():
                 print(f"console @{i}: {msg}")
         if period:
             now = time.perf_counter()
-            while warm_f is not None and next_tick - now > 0.012:
-                warm_f(warm_x)
-                time.sleep(0.008)
-                now = time.perf_counter()
             if now < next_tick:
                 time.sleep(next_tick - now)
             next_tick = max(next_tick + period, time.perf_counter())

@@ -1,12 +1,16 @@
-"""One-off: trace the global-scale BA LM step and print top device ops."""
+"""One-off: trace the global-scale BA LM step and print top device ops.
+``python profile_ba_trace.py [--northstar] [report]``; the trace is
+written under ``.traces/ba`` in the checkout."""
 
 import glob
 import gzip
 import json
+import os
 import sys
 from collections import defaultdict
 
-LOGDIR = "/tmp/trace_ba"
+LOGDIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                      ".traces", "ba")
 
 
 def capture():
@@ -15,8 +19,7 @@ def capture():
     from bench_ba import make_problem
 
     if "--northstar" in sys.argv:
-        # The C=500/P=50k/M=500k scale (fewer steps — ~8 s/iter
-        # measured honestly in round 5).
+        # The C=500/P=50k/M=500k scale (fewer steps).
         prob, cam = make_problem(500, 50000, 500000, seed=4,
                                  motion=(0.002, 0.0005))
         n_steps = 3
@@ -27,7 +30,7 @@ def capture():
     state = bundle.init_lm(prob)
     state = step(state)
     state = step(state)
-    int(state.iters)        # host read: block_until_ready doesn't fence
+    int(state.iters)        # host read fences the warmup
 
     jax.profiler.start_trace(LOGDIR)
     for _ in range(n_steps):
@@ -46,7 +49,8 @@ def report():
     for e in events:
         if e.get("ph") == "M" and e.get("name") == "process_name":
             pid_names[e["pid"]] = e["args"].get("name", "")
-    dev_pids = {p for p, nm in pid_names.items() if "TPU" in nm}
+    dev_pids = {p for p, nm in pid_names.items()
+                if nm.startswith("/device:")}
     tot = defaultdict(float)
     cnt = defaultdict(int)
     for e in events:

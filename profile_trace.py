@@ -1,5 +1,6 @@
-"""One-off: capture an XPlane/chrome trace of the tracking step and print
-the top device ops by total time."""
+"""One-off: capture a profiler trace of the tracking step and print the
+top device ops by total time. ``python profile_trace.py [report]``; the
+trace is written under ``.traces/track`` in the checkout."""
 
 import glob
 import gzip
@@ -8,73 +9,21 @@ import os
 import sys
 from collections import defaultdict
 
-import numpy as np
-
-LOGDIR = "/tmp/trace_track"
+LOGDIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                      ".traces", "track")
 
 
 def capture():
     import jax
     import jax.numpy as jnp
 
-    from ptam_cg_tpu.camera import atan
+    from bench_common import REF_PARAMS as params, make_tracking_scene
     from ptam_cg_tpu.config import EngineConfig
-    from ptam_cg_tpu.io import synth
-    from ptam_cg_tpu.models import keyframe, map_state, tracker
-    from ptam_cg_tpu.utils import se3 as se3lib
+    from ptam_cg_tpu.models import keyframe, tracker
 
-    size = (640, 480)
-    params = (1.0803, 1.43987, 0.519983, 0.548655, 0.244943)
-    seq = synth.SyntheticSequence(params, image_size=size, n_frames=8,
-                                  seed=7, height=1.5, radius=0.2,
-                                  sweep=0.6)
-    cam = seq.cam
-    f0 = seq.frame(0)
-    ff0 = jax.jit(lambda x: keyframe.build_frame(
-        x, candidate_min_score=50.0))(f0)
-    pose0 = seq.pose(0)
-    T_wc = se3lib.inv(pose0)
-
-    P = 2048
-    m = map_state.empty_map(size, max_points=P, max_kfs=4)
-    m = map_state.insert_keyframe(m, 0, ff0, pose0, 1.5, 0.1)
-    cand_xy = np.asarray(ff0.cand_xy)
-    cand_valid = np.asarray(ff0.cand_valid)
-    pts, centers, lvls = [], [], []
-    for lev in range(4):
-        xy = cand_xy[lev][cand_valid[lev]]
-        for (x, y) in xy:
-            p0 = (np.array([x, y], np.float64) + 0.5) * (1 << lev) - 0.5
-            z1 = np.asarray(atan.unproject(
-                jnp.asarray(p0, jnp.float32), cam))
-            ray = np.asarray(T_wc.R) @ np.array([z1[0], z1[1], 1.0])
-            origin = np.asarray(T_wc.t)
-            s = -origin[2] / ray[2]
-            if s <= 0:
-                continue
-            pts.append(origin + s * ray)
-            centers.append([x, y])
-            lvls.append(lev)
-            if len(pts) >= P:
-                break
-        if len(pts) >= P:
-            break
-    n = len(pts)
-    pos = np.zeros((P, 3), np.float32)
-    pos[:n] = np.stack(pts)
-    ctr = np.zeros((P, 2), np.float32)
-    ctr[:n] = np.stack(centers)
-    lv = np.zeros(P, np.int32)
-    lv[:n] = np.array(lvls)
-    c_nc, r_nc, d_nc, nrm = map_state.make_point_rays(
-        jnp.asarray(ctr), jnp.asarray(lv), pose0, cam, size)
-    m = m._replace(
-        point_pos=jnp.asarray(pos),
-        point_valid=jnp.asarray(np.arange(P) < n),
-        point_src_level=jnp.asarray(lv), point_center=jnp.asarray(ctr),
-        point_center_nc=c_nc, point_right_nc=r_nc, point_down_nc=d_nc,
-        point_normal_nc=nrm, good=jnp.asarray(True))
-    m = map_state.refresh_pixel_vectors(m)
+    scene = make_tracking_scene()
+    seq, size, m = scene.seq, scene.size, scene.map
+    cam, ff0, pose0 = seq.cam, scene.frame0, scene.pose0
 
     cfg = EngineConfig()
     cam_params = jnp.asarray(params, jnp.float32)
@@ -113,13 +62,14 @@ def report():
     with gzip.open(files[-1], "rt") as f:
         data = json.load(f)
     events = data.get("traceEvents", [])
-    # Find device lanes (TPU core threads).
+    # Device lanes: one process per device, named "/device:GPU:<n>"
+    # (host threads live under "/host:CPU").
     pid_names = {}
     for e in events:
         if e.get("ph") == "M" and e.get("name") == "process_name":
             pid_names[e["pid"]] = e["args"].get("name", "")
     dev_pids = {p for p, nm in pid_names.items()
-                if "TPU" in nm or "/device" in nm.lower()}
+                if nm.startswith("/device:")}
     tot = defaultdict(float)
     cnt = defaultdict(int)
     total = 0.0

@@ -1,14 +1,17 @@
-"""tpu-ptam: a TPU-native monocular SLAM engine with PTAM's capabilities.
+"""ptam_cg_tpu: a monocular SLAM engine in JAX with PTAM's capabilities.
 
-Built from scratch in JAX/XLA/Pallas. The reference implementation
-(cggos/ptam_cg, C++/TooN/libCVD) defines the capability surface; this package
-re-architects it TPU-first:
+The reference implementation (cggos/ptam_cg, C++/TooN/libCVD) defines the
+capability surface; this package re-architects it as static-shape
+accelerator programs:
 
 - static-shape, masked, SoA data model (`ptam_cg_tpu.models.map_state`)
-- batched image kernels on the VPU/MXU (`ptam_cg_tpu.ops`)
+- dense, batched image kernels (`ptam_cg_tpu.ops`)
 - jitted per-frame tracking step (`ptam_cg_tpu.models.tracker`)
-- MXU Schur-complement bundle adjustment (`ptam_cg_tpu.models.bundle`)
+- dense Schur-complement bundle adjustment (`ptam_cg_tpu.models.bundle`)
 - sharded global BA over a device mesh (`ptam_cg_tpu.parallel`)
+
+The package name is the project's name; the engine runs on NVIDIA GPUs
+and on the CPU.
 """
 
 __version__ = "0.1.0"

@@ -139,8 +139,8 @@ def make_corner_refiner(im_shape: Tuple[int, int], patch_size: int = 20,
             theta, last_step = carry
             r = residuals(theta, im)
             J = jax.jacfwd(lambda t: residuals(t, im))(theta)  # (Q, 6)
-            # Pinned f32: bf16-pass normal equations visibly bias the
-            # subpixel corner fit on TPU.
+            # Pinned f32: reduced-precision normal equations (TF32 on
+            # the GPU) visibly bias the subpixel corner fit.
             hi = jax.lax.Precision.HIGHEST
             JTJ = jnp.dot(J.T, J, precision=hi) + 1e-6 * jnp.eye(6)
             upd = -0.7 * jnp.linalg.solve(JTJ,

@@ -7,7 +7,7 @@ user can map their settings.cfg 1:1.  Defaults below follow
 config/settings.cfg where it overrides code defaults (ref:
 SURVEY note - CandidateMinShiTomasiScore 400 vs 70).
 
-Static capacity constants (MAX_*) are the TPU-native replacement for the
+Static capacity constants (MAX_*) are the static-shape replacement for the
 reference's variable-length vectors: fixed-capacity arrays + validity masks
 keep every jitted program static-shape so XLA compiles once.
 """
@@ -106,16 +106,15 @@ class TrackerConfig:
     quality_max_kf_dist_mult: float = 10.0
     #: Sub-pixel-refine EVERY fine-stage measurement, not only level-3.
     #: The reference restricts subpix to level-3 fine points purely for
-    #: CPU cost (ref: src/Tracker.cc:586-607); the batched TPU search
+    #: CPU cost (ref: src/Tracker.cc:586-607); the batched search
     #: computes the refinement for all points anyway, and using it removes
     #: the systematic integer-corner quantization bias. Set False for
     #: strict reference-behavior parity.
     subpix_all: bool = True
     #: Compute the ZMSSD cross-correlation term's products in bfloat16
     #: (f32 accumulation). Image values are uint8-in-spec so products are
-    #: near-exact; halves the VPU element width of the hottest remaining
-    #: tracking-loop op (~0.5 ms of the ~3.3 ms track program).
-    #: Perf experiment — see BASELINE.md ledger for the measured outcome.
+    #: near-exact; halves the element width of the ZMSSD cross term.
+    #: Off by default; whether it pays on the GPU is ROADMAP C6.
     zmssd_bf16_cross: bool = False
 
 
@@ -162,12 +161,10 @@ class BundleConfig:
     lambda_factor_initial: float = 2.0
     #: Robust sigma floor in px (ref: src/Bundle.cc:234 min 0.4).
     min_sigma: float = 0.4
-    #: Memory-lean LM step (round 5). At the 500-KF north star the
-    #: default step's peak working set is ~5 GB (dense W 1.8 GB + the
-    #: full (C6, 3P) WV product 1.8 GB + a (M, C) one-hot 1.0 GB); on
-    #: the shared-service backend that pressure costs ~7-15 s per call
-    #: of non-device overhead while the actual device compute is
-    #: ~0.4 s. ``soff_tiles`` > 1 accumulates the Schur S_off over P in
+    #: Memory-lean LM step. At the 500-KF scale the default step's
+    #: working set holds the dense W (1.8 GB), the full (C6, 3P) WV
+    #: product (1.8 GB) and a (M, C) one-hot (1.0 GB) at once.
+    #: ``soff_tiles`` > 1 accumulates the Schur S_off over P in
     #: that many tiles via lax.scan — the full WV never materializes —
     #: and ``u_chunks`` > 1 likewise chunks the U one-hot dot over M.
     #: Both fall back to the dense path unless P (resp. M) is exactly
@@ -211,20 +208,13 @@ class FrontendConfig:
     #: trail search range (ref: include/ImageProcess.h:43 10 px).
     mini_patch_max_ssd: float = 100000.0
     mini_patch_range: int = 10
-    #: Store the packed pyramid atlas in bfloat16: halves the HBM traffic
-    #: of the window gathers and runs the one-hot row/column selection
-    #: dots at bf16 MXU rate. The reference's image precision is uint8
+    #: Store the packed pyramid atlas in bfloat16: halves the memory
+    #: traffic of the window gathers and runs the one-hot row/column
+    #: selection dots at bf16 rate. The reference's image precision is uint8
     #: (ref: src/ImageProcess.cc:130-163 operates on byte images), so the
     #: ~0.5-graylevel bf16 rounding is within spec; all ZMSSD/subpix math
     #: stays float32 (gathers convert on output).
     atlas_bf16: bool = False
-    #: Use the fused Pallas row-band stencils (ops/pallas_kernels.py)
-    #: for the per-level FAST corner+score and Shi-Tomasi maps instead
-    #: of the dense XLA shift-and-blend formulation. Only takes effect
-    #: on a real TPU backend (falls back to XLA elsewhere); parity is
-    #: bound by tests/test_fast.py. Off by default pending a measured
-    #: win on the frontend dispatch.
-    pallas_stencils: bool = False
 
 
 @dataclasses.dataclass(frozen=True)

@@ -5,7 +5,7 @@ MLESAC over 4-point DLT homographies, Tukey-weighted WLS refinement,
 Faugeras-Lustman decomposition into 8 (R, t, n, d) candidates, and
 two-round visibility scoring with a Sampson-error tiebreak.
 
-TPU-first shifts: the 300 MLESAC trials run as one batched 9x9
+Batched shifts: the 300 MLESAC trials run as one batched 9x9
 eigendecomposition instead of a serial rand() loop (seeded jax.random for
 reproducibility); inlier sets are masks over a fixed-capacity match
 table; the 8-way decomposition selection is branchless.
@@ -275,9 +275,9 @@ def compute(m: Matches, key: Array, max_pixel_error: float = 5.0,
 
     Pinned float32 matmul precision throughout: the 9x9 DLT normal
     matrices, WLS refinements, and decomposition products are exactly
-    the kind of small ill-conditioned systems that TPU's default
-    single-bf16-pass matmuls corrupt (observed as flaky stereo init on
-    chip while the same code initialized first-try on CPU)."""
+    the kind of small ill-conditioned systems that a reduced default
+    matmul precision (TF32 on the GPU) corrupts, which shows up as flaky
+    stereo init."""
     with jax.default_matmul_precision("float32"):
         H = mlesac_homography(m, key, max_pixel_error, trials)
         err_sq = _pixel_errors(H, m)

@@ -1,6 +1,6 @@
 """FrameFeatures: the static-shape, device-resident frame data model.
 
-TPU-native re-architecture of the reference's KeyFrame/Level structs
+Static-shape re-architecture of the reference's KeyFrame/Level structs
 (ref: include/KeyFrame.h:130-152, src/KeyFrame.cc:18-82). The reference
 holds per-level images + variable-length corner/candidate vectors + a row
 LUT; here a frame is ONE pytree of fixed-shape arrays:
@@ -30,7 +30,6 @@ from ptam_cg_tpu.config import (LEVELS, MAX_CANDIDATES, MAX_NONMAX_CORNERS,
 from ptam_cg_tpu.ops import fast as fastops
 from ptam_cg_tpu.ops import image as imops
 from ptam_cg_tpu.ops import levels as levelops
-from ptam_cg_tpu.ops import pallas_kernels
 from ptam_cg_tpu.ops import sbi as sbiops
 
 Array = jax.Array
@@ -60,10 +59,9 @@ class FrameFeatures(NamedTuple):
 class TrackFeatures(NamedTuple):
     """Slim per-frame build for the TRACKING stage: just what the
     tracker reads (the reference's MakeKeyFrame_Lite split,
-    src/KeyFrame.cc:18-54). Keeping the per-frame pytree at 6 leaves
-    instead of FrameFeatures' 13 trims host dispatch cost on a
-    networked backend — the empty nonmax/candidate buffers were being
-    shipped through every build+track dispatch pair."""
+    src/KeyFrame.cc:18-54): 6 leaves instead of FrameFeatures' 13, so no
+    empty nonmax/candidate buffers ride through the per-frame
+    dispatch."""
 
     atlas: Array            # (Ha, W) float32 packed pyramid
     corner_mask: Array      # (Ha, W) bool — raw FAST corners
@@ -80,15 +78,10 @@ def make_frame_lite(im: Array,
     pyramid = imops.build_pyramid(im, LEVELS)
     atlas = levelops.pack_atlas(pyramid)
 
-    use_pallas = cfg.pallas_stencils and pallas_kernels.use_pallas()
     masks, scores, counts = [], [], []
     for lev in range(LEVELS):
-        if use_pallas:
-            is_c, sc = pallas_kernels.fast_score_map_banded(
-                pyramid[lev], float(cfg.fast_thresholds[lev]))
-        else:
-            is_c, sc = fastops.fast_score_map(
-                pyramid[lev], float(cfg.fast_thresholds[lev]))
+        is_c, sc = fastops.fast_score_map(
+            pyramid[lev], float(cfg.fast_thresholds[lev]))
         masks.append(is_c)
         scores.append(sc)
         counts.append(jnp.sum(is_c.astype(jnp.int32)))
@@ -119,10 +112,7 @@ def make_frame_rest(pyramid: Tuple[Array, ...], scores: Tuple[Array, ...],
 
         # Candidates: nonmax corners with >=10px border and Shi-Tomasi
         # score above threshold (ref: src/KeyFrame.cc:67-78).
-        if cfg.pallas_stencils and pallas_kernels.use_pallas():
-            st = pallas_kernels.shi_tomasi_banded(pyramid[lev], half_box=3)
-        else:
-            st = imops.shi_tomasi_score_map(pyramid[lev], half_box=3)
+        st = imops.shi_tomasi_score_map(pyramid[lev], half_box=3)
         hl, wl = pyramid[lev].shape
         border = jnp.zeros((hl, wl), bool)
         if hl > 20 and wl > 20:

@@ -1,6 +1,6 @@
 """MapState: the device-resident, static-shape SLAM map.
 
-TPU-native re-architecture of the reference's Map/MapPoint/KeyFrame heap
+Static-shape re-architecture of the reference's Map/MapPoint/KeyFrame heap
 objects (ref: include/Map.h:32-101, include/KeyFrame.h:130-152). The
 reference shares a pointer-linked map between two threads with a trash
 list standing in for deletion (ref: include/Map.h:8-13); here the map is
@@ -73,7 +73,7 @@ class MapState(NamedTuple):
     # The reference keeps a std::map<MapPoint*, Measurement> per KF plus
     # per-point sets of measuring/never-retry KFs (ref: include/KeyFrame.h,
     # MapMakerData). With fixed capacities a dense (K, P) layout is the
-    # TPU-native equivalent: O(1) indexed, no dedup, trivially batched.
+    # static-shape equivalent: O(1) indexed, no dedup, trivially batched.
     meas_valid: Array         # (K, P) bool — measurement exists
     meas_pos: Array           # (K, P, 2) float32 level-0 position
     meas_level: Array         # (K, P) int32

@@ -1,6 +1,6 @@
 """The tracking engine: per-frame pose estimation as one jitted program.
 
-TPU-native re-architecture of the reference Tracker (ref: src/Tracker.cc).
+Batched re-architecture of the reference Tracker (ref: src/Tracker.cc).
 The reference iterates point-by-point through PVS construction, patch
 search, and WLS accumulation on two CPU threads; here every stage is a
 batched tensor op over fixed-capacity point sets:
@@ -64,7 +64,6 @@ R_WIN = 16                 # coarse static search window radius (level px)
 # the measurement. The reference declares subpix "should never travel
 # more than a pixel" (src/PatchFinder.cc:249-252), so 1 px of margin is
 # in-spec; test_subpix_window_reuse_near_radius covers it.
-# (Measured round 3: 229.5 -> 274.5 FPS; see BASELINE.)
 FINE_R_WIN = 11
 MAX_SSD = 8 * 8 * 500.0    # ref: src/PatchFinder.cc:18-19
 
@@ -100,9 +99,7 @@ class TrackView(NamedTuple):
     """The 14 MapState leaves the per-frame TRACKING program actually
     reads — a slim duck-typed stand-in for MapState at the jit boundary.
 
-    On the networked TPU backend, host dispatch cost scales with the
-    argument pytree's leaf count (round-1 finding; VERDICT r4 #5 named
-    slimming the fused program's pytree surface as a track-floor lever).
+    Host dispatch cost grows with the argument pytree's leaf count.
     The full MapState is ~36 leaves; tracking + the per-frame decision
     scalars touch only these. ``make_track_view`` builds one for free
     (host tuple of existing device buffers — no device ops). Every
@@ -305,12 +302,11 @@ def _gn_pose_iterations(pose: SE3, cam: atan.Camera, image_size,
     (ref: src/Tracker.cc:546-568 (coarse), :621-657 (fine),
     CalcPoseUpdate :928-1005). Returns (pose, final_weights).
 
-    The whole solve is traced under pinned float32 matmul precision:
-    TPU's default single-bf16-pass matmuls corrupt the 6x6 normal
-    equations enough to degrade the pose over a sequence (measured:
-    BA point error 0.55 scene units at default vs 7e-4 pinned). The
+    The whole solve is traced under pinned float32 matmul precision: a
+    reduced default matmul precision (TF32 on the GPU) corrupts the 6x6
+    normal equations enough to degrade the pose over a sequence. The
     image-value gather/ZMSSD dots elsewhere deliberately stay at the
-    fast default — uint8-in-spec (ref precision: src/ImageProcess.cc).
+    default — uint8-in-spec (ref precision: src/ImageProcess.cc).
     """
     with jax.default_matmul_precision("float32"):
         return _gn_pose_iterations_impl(
@@ -335,8 +331,8 @@ def _gn_pose_iterations_impl(pose: SE3, cam: atan.Camera, image_size,
         err = (v2found - pix) * sqrt_inv_noise[:, None]
         ok = found & proj_ok
         err_sq = jnp.sum(err * err, axis=-1)
-        # Approx median: this runs inside every GN iteration; a full
-        # sort per iteration dominates the solve on TPU.
+        # Approx median: this runs inside every GN iteration, where a
+        # full sort per iteration would dominate the solve.
         sigma_sq = mest.find_sigma_squared(err_sq, ok, mest_kind,
                                            approx=True)
         sigma_sq = jnp.where(it > override_after,
@@ -345,8 +341,6 @@ def _gn_pose_iterations_impl(pose: SE3, cam: atan.Camera, image_size,
         Js = J * sqrt_inv_noise[:, None, None]
         JTJ = jnp.einsum("n,nij,nik->jk", w, Js, Js) + 100.0 * jnp.eye(6)
         rhs = jnp.einsum("n,nij,ni->j", w, Js, err)
-        # Unrolled SPD solve: the LU custom-call costs ~25 us dispatch per
-        # iteration x 20 chained iterations/frame.
         upd = jnp.linalg.solve(JTJ, rhs)
         new_pose = se3lib.mul(se3lib.se3_exp(upd), pose_i)
         return new_pose.R, new_pose.t, w, jnp.sum(upd * upd)
@@ -583,8 +577,8 @@ def track_frame(state: TrackerState, m: MapState, frame: FrameFeatures,
     quality assessment. One jitted program.
 
     The per-frame PRNG key is carried in ``state.key`` and advanced here
-    (host-side ``PRNGKey``/``split`` calls are extra device programs —
-    costly per-frame dispatches on a networked backend). Passing ``key``
+    (host-side ``PRNGKey``/``split`` calls would be extra per-frame
+    device programs). Passing ``key``
     explicitly overrides the state key for this frame (tests).
 
     Pinned-f32 matmuls throughout (motion model, SBI seed conversion,
@@ -691,8 +685,7 @@ def track_frame_from_image(state: TrackerState, m: MapState, im: Array,
                            ) -> FusedFrameOutput:
     """Fused per-frame step: frontend build (MakeKeyFrame_Lite
     equivalent) + track_frame in ONE jitted program — one device
-    dispatch per frame instead of two (each dispatch costs ~0.3-0.8 ms
-    host time on a networked backend). The tracking stage only consumes
+    dispatch per frame instead of two. The tracking stage only consumes
     the atlas/corner mask/SBIs, so the keyframe-only candidate fields
     never materialize."""
     from ptam_cg_tpu.config import FrontendConfig

@@ -1,4 +1,4 @@
-"""FAST-10 corner detection as dense, vectorized TPU ops.
+"""FAST-10 corner detection as dense, vectorized array ops.
 
 Replaces libCVD's fast_corner_detect_10 / fast_nonmax used by the reference
 (ref: src/KeyFrame.cc:35-53). Instead of producing variable-length corner
@@ -118,7 +118,7 @@ def corners_from_mask(mask: Array, score: Array, max_n: int,
 
     ``tile`` > 1 enables tiled selection: only the best corner per
     (tile x tile) block competes, which shrinks the top_k sort by tile^2
-    (a full-image sort costs ~6 ms on TPU) and spreads corners spatially.
+    and spreads corners spatially.
     """
     H, W = mask.shape
     key = jnp.where(mask, score, -jnp.inf)

@@ -1,9 +1,9 @@
 """Dense image kernels: pyramid, blur, gradients, Shi-Tomasi score maps.
 
-TPU-native replacements for libCVD's halfSample/convolveGaussian and the
+Dense replacements for libCVD's halfSample/convolveGaussian and the
 reference's per-point Shi-Tomasi loop (ref: src/ImageProcess.cc:20-47,
 src/KeyFrame.cc:23-53). Everything here is *dense*: instead of scoring
-individual corner points we produce whole score maps on the VPU, and
+individual corner points we produce whole score maps, and
 downstream code gathers/top-ks from them. Images are float32 (...,H,W)
 with intensity in [0, 255] to keep the reference's tunable thresholds
 meaningful.
@@ -69,7 +69,7 @@ def gaussian_blur(im: Array, sigma: float) -> Array:
 
 def _conv1d_last(x: Array, k: Array) -> Array:
     """Correlate the last axis with kernel k (valid mode), via stacked
-    shifts — XLA fuses this into a handful of VPU ops."""
+    shifts — XLA fuses this into one elementwise kernel."""
     n = k.shape[0]
     L = x.shape[-1] - n + 1
     acc = jnp.zeros((*x.shape[:-1], L), x.dtype)
@@ -165,7 +165,7 @@ def affine_warp_sample(im: Array, center: Array, A: Array, offsets: Array,
                        pad_value: float = 0.0):
     """Sample im at center + A @ offset for a grid of offsets.
 
-    The TPU replacement for CVD::transform-based template warping
+    The batched replacement for CVD::transform-based template warping
     (ref: src/PatchFinder.cc:98-127). ``offsets`` is (P, 2) patch coords
     relative to patch center; ``A`` (2, 2); ``center`` (2,) in (x, y).
     Returns (values (P,), valid (P,)).

@@ -4,10 +4,10 @@ Level transforms replicate the reference exactly
 (ref: include/KeyFrame.h:85-124): pixel centers shift by half a pixel per
 level, so LevelZeroPos(p, l) = (p + 0.5) * 2^l - 0.5.
 
-The *atlas* is the TPU-native representation of a 4-level pyramid: all
+The *atlas* is the static-shape representation of a 4-level pyramid: all
 levels packed into ONE static-shape (1.5*H, W) image so that per-point
 dynamic slices can address any level with a single offset — no ragged
-tuples inside jitted code, one contiguous HBM buffer per keyframe.
+tuples inside jitted code, one contiguous device buffer per keyframe.
 
 Layout for a (H, W) level-0 image::
 

@@ -1,6 +1,6 @@
 """Batched patch search: the engine's hottest path.
 
-TPU-native re-architecture of PatchFinder (ref: src/PatchFinder.cc). The
+Batched re-architecture of PatchFinder (ref: src/PatchFinder.cc). The
 reference searches each map point serially: warp an 8x8 template, scan FAST
 corners within a radius via a row LUT, score ZMSSD per corner
 (SSE-optimized upstream), then iterate inverse-composition sub-pixel
@@ -12,7 +12,7 @@ alignment. Here all N points run at once:
    in one shot (ref: MakeTemplateCoarseCont, src/PatchFinder.cc:98-127).
 3. ``ssd_search`` — *dense windowed* ZMSSD: a static window around each
    predicted position, 8x8 sliding sums via integral images, the cross
-   term as one grouped convolution on the MXU, candidates masked by the
+   term as P*P shifted multiply-adds, candidates masked by the
    dense FAST-corner mask (the dense-mask equivalent of the corner row
    LUT, ref: FindPatchCoarse src/PatchFinder.cc:160-211).
 4. ``subpix_refine`` — batched inverse-composition iterations with the
@@ -125,8 +125,8 @@ def make_warped_templates_flat(kf_atlases: Array, kf_idx: Array,
                                src_bounds: Array,
                                patch_size: int = PATCH_SIZE) -> tuple:
     """Warp templates via flat-index bilinear gathers (fallback/reference
-    formulation; ~1.9 ms per 1152 points on TPU — the 4 corner takes are
-    element-count-bound). See ``make_warped_templates`` for the fast path.
+    formulation: four per-sample corner takes). See
+    ``make_warped_templates`` for the production path.
     """
     offsets = _patch_grid(patch_size)               # (P*P, 2)
     pts = src_center[:, None, :] + jnp.einsum(
@@ -172,10 +172,10 @@ def make_warped_templates(kf_atlases: Array, kf_idx: Array,
     (x0, y0, x1, y1) of the source *level* rect, to detect out-of-level
     samples (the ref's nOutside check).
 
-    TPU strategy: gather ONE (window, window) neighborhood per point
+    Strategy: gather ONE (window, window) neighborhood per point
     around the source center (vectorized row gather + column dot), then
     evaluate all P*P bilinear samples INSIDE the window with separable
-    one-hot interpolation dots on the MXU — no per-sample gathers.
+    one-hot interpolation dots — no per-sample gathers.
     Warps whose samples leave the window (per-axis extent >
     (window/2 − 2)/(patch/2), i.e. extreme anisotropy the det∈[0.25,3]
     gate admits but the reference would also warp poorly) are flagged
@@ -184,7 +184,7 @@ def make_warped_templates(kf_atlases: Array, kf_idx: Array,
 
     Returns (templates (N, P, P), good (N,)).
     """
-    from ptam_cg_tpu.ops.pallas_gather import gather_windows
+    from ptam_cg_tpu.ops.gather import gather_windows
 
     offsets = _patch_grid(patch_size)               # (P*P, 2)
     pts = src_center[:, None, :] + jnp.einsum(
@@ -212,10 +212,10 @@ def make_warped_templates(kf_atlases: Array, kf_idx: Array,
     ii = jnp.arange(S, dtype=jnp.int32)
     wy = ((ii == y0c[..., None]).astype(win.dtype) * (1 - fy)[..., None]
           + (ii == y0c[..., None] + 1).astype(win.dtype) * fy[..., None])
-    # Explicit DEFAULT precision: uint8-in-spec image values x two-hot
-    # bilinear weights — the ~0.4% weight rounding is inside ZMSSD
-    # margins, and this dot must keep MXU speed under the tracker's
-    # pinned-f32 program.
+    # Explicit DEFAULT precision: image values x two-hot bilinear
+    # weights, whose reduced-precision rounding (TF32 on the GPU) stays
+    # inside the ZMSSD margins; this dot opts out of the tracker's
+    # pinned-f32 program on purpose.
     t1 = jnp.einsum("nps,nsc->npc", wy, win,
                     preferred_element_type=jnp.float32,
                     precision=jax.lax.Precision.DEFAULT)  # (N, P*P, S)
@@ -281,7 +281,7 @@ def ssd_search(atlas: Array, corner_mask: Array, templates: Array,
     M = 2 * r_win + 1                 # candidate-map side
     Ha, Wa = atlas.shape
 
-    from ptam_cg_tpu.ops.pallas_gather import gather_windows
+    from ptam_cg_tpu.ops.gather import gather_windows
 
     base = jnp.round(centers).astype(jnp.int32)           # (N, 2) x,y
     origin_x = jnp.clip(base[:, 0] - r_win - ph, 0, Wa - D)
@@ -298,11 +298,11 @@ def ssd_search(atlas: Array, corner_mask: Array, templates: Array,
     S_img = _integral_window_sums(win, P)                  # (N, M, M)
     SSQ_img = _integral_window_sums(win * win, P)
 
-    # Cross term: per-point correlation as P*P shifted multiply-adds on
-    # the VPU (a grouped conv with N groups maps poorly to the MXU).
+    # Cross term: per-point correlation as P*P shifted multiply-adds
+    # (a grouped conv with N groups is the alternative formulation).
     # bf16_cross: image values are uint8-in-spec (integers <= 255, exact
     # in bf16's 8-bit mantissa), so the products are computed in bf16 —
-    # halved VPU element width — and only ACCUMULATED in f32. Worst-case
+    # halved element width — and only ACCUMULATED in f32. Worst-case
     # product rounding is ~0.4%, well inside the ZMSSD decision margins
     # (same in-spec argument as the one-hot gather dots; CLAUDE.md).
     if bf16_cross:
@@ -427,7 +427,7 @@ def subpix_refine(atlas: Array, templates: Array, pos0: Array,
         c0 = jnp.round(pos0).astype(jnp.int32)                # (N, 2) x,y
         org_x = jnp.clip(c0[:, 0] - ph - MARGIN, 0, Wa - D)
         org_y = jnp.clip(c0[:, 1] - ph - MARGIN, 0, Ha - D)
-        from ptam_cg_tpu.ops.pallas_gather import gather_windows
+        from ptam_cg_tpu.ops.gather import gather_windows
         win = gather_windows(atlas, jnp.stack([org_y, org_x], -1), D)
         origin = jnp.stack([org_x, org_y], -1).astype(jnp.float32)
 
@@ -449,11 +449,11 @@ def subpix_refine(atlas: Array, templates: Array, pos0: Array,
         ibc_x = jnp.clip(ib[:, 0], 0, D - P - 1)
         ibc_y = jnp.clip(ib[:, 1], 0, D - P - 1)
 
-        # Per-point integer re-basing WITHOUT dynamic slicing:
-        # vmapped dynamic_slice lowers to a sequential while loop on TPU
-        # (9216 serial slices per frame!). The integer base is bounded by
-        # the window, so select it with a SEPARABLE one-hot blend over
-        # static shifts — pure VPU work, rows then columns.
+        # Per-point integer re-basing WITHOUT dynamic slicing (a
+        # vmapped dynamic_slice can lower to a serial loop of slices).
+        # The integer base is bounded by the window, so select it with a
+        # SEPARABLE one-hot blend over static shifts, rows then
+        # columns.
         n_off = D - P
         Sq = Q + 1
         oy_oh = jax.nn.one_hot(ibc_y, n_off, dtype=win.dtype)  # (N, n_off)
@@ -489,8 +489,7 @@ def subpix_refine(atlas: Array, templates: Array, pos0: Array,
     # while_loop with an all-settled early exit (EXACT parity with the
     # fixed fori_loop: settled points take no further updates, so the
     # skipped iterations are no-ops). Typical frames settle in 2-4
-    # iterations; the serial 8-iteration loop was one of the largest
-    # flat-profile entries in the round-3 track trace.
+    # iterations of the 8 allowed.
     def loop_cond(state):
         it, _, _, conv, failed = state
         return (it < max_its) & ~jnp.all(conv | failed)

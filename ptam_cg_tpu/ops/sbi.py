@@ -7,7 +7,7 @@ ESM loop a la Benhimane & Malis, then converted to a pure camera rotation.
 Used by the tracker's rotation-estimator seed (blur 0.75) and the
 relocalizer (blur 2.5).
 
-The reference's per-pixel do/while loops become whole-image VPU ops; the
+The reference's per-pixel do/while loops become whole-image ops; the
 fixed ``n_iterations`` loop runs under ``lax.fori_loop`` so the whole
 aligner jits into one XLA program.
 """
@@ -82,9 +82,8 @@ def iterate_pos_rel_to_target(moving: SBI, target: SBI,
         (mirrors CVD::transform's -9e20 fill).
 
         Sampling is one (hw, hw) one-hot interpolation dot instead of four
-        image gathers: per-element gathers cost ~80 ns each on TPU (the
-        four gathers were ~0.4 ms/frame in the round-1 trace) while the
-        1200x1200 matmul is noise on the MXU."""
+        image gathers (whether a native gather is cheaper on the GPU is
+        ROADMAP C7)."""
         px = R[0, 0] * xs + R[0, 1] * ys + t[0]
         py = R[1, 0] * xs + R[1, 1] * ys + t[1]
         x0 = jnp.floor(px).astype(jnp.int32)
@@ -127,9 +126,9 @@ def iterate_pos_rel_to_target(moving: SBI, target: SBI,
         J = jnp.stack([sum_gx, sum_gy, j2, ones], axis=-1) * m[..., None]
         d = diff * m
         score = jnp.sum(d * d)
-        # Pinned f32: 4x4 normal equations must not run at the TPU's
-        # default single-bf16-pass matmul precision (the warp dot above
-        # deliberately stays fast — image values are uint8-in-spec).
+        # Pinned f32: the 4x4 normal equations must not run at a
+        # reduced default matmul precision (TF32 on the GPU); the warp
+        # dot above deliberately stays at the default.
         JTd = jnp.einsum("hwk,hw->k", J, d,
                          precision=jax.lax.Precision.HIGHEST)
         JTJ = jnp.einsum("hwi,hwj->ij", J, J,

@@ -7,8 +7,9 @@ point for scaling the mapping backend across chips and hosts:
   multi-host runs (no-op when single-host)
 - ``make_map_mesh``: 1-D mesh over all devices for the
   measurement-parallel global BA (``parallel.sharded_ba``)
-- ``make_hybrid_mesh``: 2-D (host, chip) mesh for hierarchies that keep
-  the Schur psum on ICI within a host before crossing DCN
+- ``make_hybrid_mesh``: 2-D (process, local-device) mesh for runs that
+  span several hosts; one process on one host (for example four GPUs
+  joined all to all by NVLink) uses the 1-D ``make_map_mesh``
 """
 
 from __future__ import annotations
@@ -51,8 +52,11 @@ def make_map_mesh(n_devices: Optional[int] = None,
 
 
 def make_hybrid_mesh(axes: Tuple[str, str] = ("host", "chip")) -> Mesh:
-    """2-D (process, local-chip) mesh: shard the measurement axis over
-    local chips (psum rides ICI) and the outer axis over hosts (DCN)."""
+    """2-D (process, local-device) mesh: shard the measurement axis over
+    each host's devices and the outer axis over hosts, so the Schur psum
+    reduces within a host before it crosses the network between hosts.
+    Every device of one host reaches every other at the same rate, so a
+    single-host run needs only the 1-D ``make_map_mesh``."""
     devs = jax.devices()
     n_proc = jax.process_count()
     local = len(devs) // max(n_proc, 1)

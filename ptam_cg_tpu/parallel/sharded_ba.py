@@ -5,7 +5,7 @@ and is the scaling bottleneck (ref: src/Bundle.cc:364-446 O(meas*cams)
 per LM step; SURVEY §5.7-5.8). Here the problem is **point-sharded**: each
 device owns a contiguous block of map points, every measurement lives on
 the device that owns its point, and the only things that ever cross the
-ICI are camera-sized blocks:
+interconnect are camera-sized blocks:
 
 per LM step      U (36C) + ea (6C) + error scalar      [psum]
                  squared residuals for the robust sigma [all_gather, O(M)
@@ -18,18 +18,19 @@ The big tensors — V (P,3,3), eb, and the W blocks (P,C,6,3), which are
 O(P*18C) and were the scaling killer when psummed densely — never move:
 each device holds only its point-shard slice (P/D, C, 6, 3), computes its
 partial of the reduced camera system S_off = sum_p W_p V*_p^-1 W_p^T as
-ONE local (6C, 3P/D) @ (3P/D, 6C) MXU matmul, and contributes a (6C)^2
-block to the psum. This is the TPU-native form of the reference's
+ONE local (6C, 3P/D) @ (3P/D, 6C) matmul, and contributes a (6C)^2
+block to the psum. This is the dense form of the reference's
 camera-pair "off-diagonal scripts" (ref: src/Bundle.cc:572-599): the
 scripts exploit per-point observer sparsity serially; the dense per-shard
-matmul replays exactly the same sum with the MXU's throughput, and the
+matmul replays exactly the same sum at matrix-unit throughput, and the
 collective is independent of both P and M. Point back-substitution
 (ref: src/Bundle.cc:461-483) is local to the point shard; the (6C)^2
 Cholesky of S runs replicated (at the 500-KF north star S is 3000^2 —
 ~9 GFLOP, negligible next to the per-shard S_off matmul).
 
-``make_sharded_lm_step`` returns a jitted shard_map program; the driver's
-``dryrun_multichip`` compiles it on an N-virtual-device CPU mesh, and
+``make_sharded_lm_step`` returns a jitted shard_map program;
+``__graft_entry__.dryrun_multichip`` runs it on an N-device mesh (four
+GPUs through ``chip_smoke.py --chips 4``, or virtual CPU devices), and
 ``tests/test_sharded_ba.py`` checks equal-results vs the single-chip step
 at 128 KF / 16k points / 64k measurements.
 """
@@ -55,7 +56,7 @@ from ptam_cg_tpu.utils import se3 as se3lib
 Array = jax.Array
 
 #: Per-shard measurement capacity is padded to this multiple so the
-#: reordered table tiles cleanly onto the VPU lanes.
+#: reordered table has no ragged tail.
 _MEAS_PAD = 128
 
 
@@ -195,7 +196,7 @@ def _sharded_step(state: LMState, cam: atan.Camera, cfg: BundleConfig,
     """One point-sharded LM step; runs INSIDE shard_map (per-shard views).
 
     Pinned f32 matmul precision — same rationale as bundle.lm_step
-    (TPU default bf16 passes corrupt the normal equations)."""
+    (reduced-precision passes corrupt the normal equations)."""
     with jax.default_matmul_precision("float32"):
         return _sharded_step_body(state, cam, cfg, mest_kind, axis)
 

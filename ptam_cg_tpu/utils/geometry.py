@@ -19,9 +19,9 @@ Array = jax.Array
 def _smallest_right_singular(A: Array) -> Array:
     """Right-singular vector for the smallest singular value of (..., m, n).
 
-    Uses eigh of AᵀA — TPU-friendly (no complex SVD path) and exactly what a
-    DLT null-space needs. AᵀA is formed at pinned f32 precision: a
-    single-bf16-pass product visibly perturbs the null space (DLT
+    Uses eigh of AᵀA — exactly what a DLT null-space needs. AᵀA is
+    formed at pinned f32 precision: a reduced-precision product visibly
+    perturbs the null space (DLT
     triangulation feeds map-point positions).
     """
     AtA = jnp.einsum("...mi,...mj->...ij", A, A,
@@ -180,13 +180,12 @@ def sampson_error(essential: Array, v2a: Array, v2b: Array) -> Array:
 
 def spd_solve(A: Array, b: Array) -> Array:
     """Solve A x = b for small SPD A (..., n, n) by a fully unrolled
-    Cholesky — pure fusable VPU scalar ops, no LU custom-call. The
-    reference's TooN ``Cholesky<6>``/``WLS<N>`` solves are this size
-    (ref: src/Tracker.cc:976 WLS<6>, src/PatchFinder.cc:240 M3Inverse,
-    src/ImageProcess.cc:383 Cholesky<4>); on TPU the LAPACK-style
-    custom-call costs ~25 us dispatch per GN iteration, which dominates
-    chained 10-iteration solve loops. Static n (unrolled) — intended for
-    n <= 9."""
+    Cholesky — pure fusable elementwise ops, no solver library call
+    inside the chained 10-iteration GN loops. The reference's TooN
+    ``Cholesky<6>``/``WLS<N>`` solves are this size (ref:
+    src/Tracker.cc:976 WLS<6>, src/PatchFinder.cc:240 M3Inverse,
+    src/ImageProcess.cc:383 Cholesky<4>). Static n (unrolled) — intended
+    for n <= 9."""
     n = A.shape[-1]
     L = [[None] * n for _ in range(n)]
     for i in range(n):

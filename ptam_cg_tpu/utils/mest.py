@@ -2,7 +2,7 @@
 
 Capability parity with the reference's cg::{Tukey,Cauchy,Huber,LeastSquares}
 (ref: include/Tools.h:88-256), but operating on *masked fixed-capacity
-arrays* instead of std::vector — the TPU-native idiom. ``find_sigma_squared``
+arrays* instead of std::vector — the static-shape idiom. ``find_sigma_squared``
 reproduces the reference's MAD-style formula exactly:
 
     sigma = 1.4826 * (1 + 5/(2n - 6)) * sqrt(median(err^2)) * c
@@ -48,8 +48,8 @@ def masked_median(values: Array, mask: Array) -> Array:
 def masked_median_approx(values: Array, mask: Array) -> Array:
     """Median-of-medians approximation: rows of ~sqrt(N), exact masked
     median per row, then the masked median of row-medians. ~2 small sorts
-    instead of one full-length sort (a full sort costs milliseconds on
-    TPU and the robust-sigma loops run it every GN iteration). Bias is
+    instead of one full-length sort (the robust-sigma loops run it every
+    GN iteration). Bias is
     well within the M-estimator's tolerance."""
     n = values.shape[-1]
     rows = 1

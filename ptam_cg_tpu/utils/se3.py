@@ -32,17 +32,13 @@ _EPS = 1e-8
 def _pinned_f32(fn):
     """Run every matmul in ``fn`` at pinned float32 precision.
 
-    TPU's default single-bf16-pass matmul is catastrophic for POSE
-    COMPOSITION: the per-frame chain R' = exp(upd) @ R (20+ GN/motion
-    compositions per frame, no re-orthonormalization) compounds the
-    ~0.4% bf16 rounding multiplicatively. Measured round 3 (bench_large
-    scenario, TPU): after ~80 frames the keyframe rotations had drifted
-    to |R_ij| = 1.007 (scale creep off SO(3)), the map inflated (point
-    |x| max 5.6 on a ~2-unit scene), and tracking collapsed 430 found ->
-    0 — while the identical run on CPU (full f32) held ~490 found. BA
-    was NOT the cause (reproduced with BA disabled); the round-2 pins
-    covered the solvers but not this state-composition chain. Pinning
-    here makes drift structurally impossible regardless of caller."""
+    A reduced default matmul precision (TF32 on the GPU) is
+    catastrophic for POSE COMPOSITION: the per-frame chain
+    R' = exp(upd) @ R (20+ GN/motion compositions per frame, no
+    re-orthonormalization) compounds the rounding multiplicatively —
+    rotations creep off SO(3), the map inflates, and tracking collapses
+    within ~100 frames while the same run at full float32 holds.
+    Pinning here makes that drift impossible regardless of caller."""
     @functools.wraps(fn)
     def wrapper(*a, **k):
         with jax.default_matmul_precision("float32"):

@@ -11,7 +11,7 @@ from ptam_cg_tpu.config import FrontendConfig
 from ptam_cg_tpu.io import synth
 from ptam_cg_tpu.models import keyframe
 from ptam_cg_tpu.ops import patch as patchops
-from ptam_cg_tpu.ops.pallas_gather import gather_windows
+from ptam_cg_tpu.ops.gather import gather_windows
 
 REF_PARAMS = (1.0803, 1.43987, 0.519983, 0.548655, 0.244943)
 SIZE = (320, 240)

@@ -204,10 +204,10 @@ def test_blown_solve_sets_failed_flag():
 
 
 def test_lean_memory_step_matches_dense():
-    """The memory-lean LM step (soff_tiles/u_chunks, round 5 — the
-    MapMaker's big-tier product configuration, where the dense step's
-    ~5 GB peak working set costs seconds of shared-service overhead per
-    call) must produce the dense step's results: same accept/convergence
+    """The memory-lean LM step (soff_tiles/u_chunks — the MapMaker's
+    big-tier product configuration, which keeps the dense step's
+    GB-scale temporaries from materializing at once) must produce the
+    dense step's results: same accept/convergence
     flags and matching poses/points to f32 reassociation tolerance."""
     import dataclasses
 

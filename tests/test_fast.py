@@ -4,6 +4,7 @@ ref usage: src/KeyFrame.cc:35-42)."""
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from ptam_cg_tpu.ops import fast as fastops
 
@@ -103,43 +104,46 @@ def test_detect_full_pipeline():
         assert m[y, x]
 
 
-def test_pallas_fast_matches_xla_interpret():
-    """Pallas kernel parity in interpret mode (runs anywhere)."""
-    from ptam_cg_tpu.ops import pallas_kernels as pk
-    im = np.random.default_rng(5).uniform(0, 255, (48, 64)) \
-        .astype(np.float32)
-    m1, s1 = fastops.fast_score_map(jnp.asarray(im), 15.0)
-    m2, s2 = pk.fast_score_map_pallas(jnp.asarray(im), 15.0,
-                                      interpret=True)
-    np.testing.assert_array_equal(np.asarray(m1), np.asarray(m2))
-    np.testing.assert_allclose(np.asarray(s1), np.asarray(s2), atol=1e-4)
+def shi_tomasi_reference(im, half_box, x, y):
+    """Transcription of ShiTomasiScoreAtPoint (ref:
+    src/ImageProcess.cc:20-47): central differences without the 0.5,
+    second moments over the (2*half_box+1)^2 box, each divided by
+    2 * nPixels, smaller eigenvalue of the 2x2 matrix — in float64."""
+    dxx = dyy = dxy = 0.0
+    for yy in range(y - half_box, y + half_box + 1):
+        for xx in range(x - half_box, x + half_box + 1):
+            dx = float(im[yy, xx + 1]) - float(im[yy, xx - 1])
+            dy = float(im[yy + 1, xx]) - float(im[yy - 1, xx])
+            dxx += dx * dx
+            dyy += dy * dy
+            dxy += dx * dy
+    n_pixels = (2 * half_box + 1) ** 2
+    dxx /= 2.0 * n_pixels
+    dyy /= 2.0 * n_pixels
+    dxy /= 2.0 * n_pixels
+    return 0.5 * (dxx + dyy - np.sqrt((dxx + dyy) * (dxx + dyy)
+                                      - 4 * (dxx * dyy - dxy * dxy)))
 
 
-def test_pallas_banded_fast_matches_xla_interpret():
-    """Row-band production kernel parity: multi-band grid (120 rows ->
-    several bands), band-boundary rows are interior rows and must be
-    exact; clamped-halo corruption only ever hits masked border rows."""
-    from ptam_cg_tpu.ops import pallas_kernels as pk
-    im = np.random.default_rng(6).uniform(0, 255, (120, 160)) \
-        .astype(np.float32)
-    m1, s1 = fastops.fast_score_map(jnp.asarray(im), 12.0)
-    m2, s2 = pk.fast_score_map_banded(jnp.asarray(im), 12.0,
-                                      interpret=True)
-    np.testing.assert_array_equal(np.asarray(m1), np.asarray(m2))
-    np.testing.assert_allclose(np.asarray(s1), np.asarray(s2), atol=1e-4)
-
-
-def test_pallas_banded_shi_tomasi_matches_xla_interpret():
+@pytest.mark.parametrize("half_box", [1, 2, 3])
+def test_shi_tomasi_matches_reference_transcription(half_box):
+    """Dense Shi-Tomasi map == the reference's per-point score at every
+    pixel where the reference reads inside the image; zero on the
+    border it cannot score."""
     from ptam_cg_tpu.ops import image as imageops
-    from ptam_cg_tpu.ops import pallas_kernels as pk
-    im = np.random.default_rng(7).uniform(0, 255, (120, 160)) \
-        .astype(np.float32)
-    s1 = imageops.shi_tomasi_score_map(jnp.asarray(im))
-    s2 = pk.shi_tomasi_banded(jnp.asarray(im), interpret=True)
-    # Different box-sum associativity (separable vs direct): fp-noise
-    # level disagreement only.
-    np.testing.assert_allclose(np.asarray(s1), np.asarray(s2),
-                               rtol=2e-4, atol=0.5)
+    im = np.random.default_rng(7 + half_box).integers(
+        0, 256, (24, 32)).astype(np.float32)
+    got = np.asarray(imageops.shi_tomasi_score_map(jnp.asarray(im),
+                                                   half_box=half_box))
+    b = half_box + 1
+    H, W = im.shape
+    ref = np.zeros((H, W))
+    for y in range(b, H - b):
+        for x in range(b, W - b):
+            ref[y, x] = shi_tomasi_reference(im, half_box, x, y)
+    # float32 box sums (running-sum differences) against float64.
+    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=0.05)
+    assert np.all(got[:b] == 0) and np.all(got[:, :b] == 0)
 
 
 def test_tiled_corner_selection():

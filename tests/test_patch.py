@@ -3,6 +3,7 @@
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from ptam_cg_tpu.ops import patch as patchops
 
@@ -223,16 +224,26 @@ def test_subpix_jit_compiles():
     assert res.pos.shape == (1, 2)
 
 
-def test_pallas_gather_windows_interpret_parity():
-    from ptam_cg_tpu.ops import pallas_gather as pg
-    atlas = jnp.asarray(rng(11).uniform(0, 255, (96, 128))
+@pytest.mark.parametrize("D", [8, 12, 16])
+@pytest.mark.parametrize("width", [256, 200], ids=["banded", "rows"])
+def test_gather_windows_rowtake_matches_vmap(D, width):
+    """The production window gather (row take + one-hot column dot) is
+    exact against the vmapped dynamic_slice reference, on an atlas
+    width that takes the 128-wide band path (a multiple of 128) and one
+    that takes whole rows; origins past the far edge clip the same way."""
+    from ptam_cg_tpu.ops import gather
+    Ha = 72
+    atlas = jnp.asarray(rng(11).uniform(0, 255, (Ha, width))
                         .astype(np.float32))
-    origins = jnp.asarray(
-        rng(12).integers(0, 80, (16, 2)).astype(np.int32))
-    ref = jax.vmap(lambda o: jax.lax.dynamic_slice(
-        atlas, (o[0], o[1]), (12, 12)))(origins)
-    got = pg.gather_windows_pallas(atlas, origins, 12, interpret=True)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(ref))
+    origins = np.stack([rng(12).integers(0, Ha - D + 3, 40),
+                        rng(13).integers(0, width - D + 3, 40)], -1)
+    # Windows straddling a band boundary, and the far corner.
+    origins[:3] = [[5, 128 - D // 2], [0, 127], [Ha - D, width - D]]
+    origins = jnp.asarray(origins.astype(np.int32))
+    ref = gather.gather_windows_vmap(atlas, origins, D)
+    got = gather.gather_windows_rowtake(atlas, origins, D)
+    assert got.shape == (40, D, D) and got.dtype == jnp.float32
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
 
 
 def test_ssd_search_window_size_invariance():
